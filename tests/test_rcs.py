@@ -1,8 +1,8 @@
-"""Blocked MXU RCS solver (problem/rcs.py) vs the generic engine.
+"""Blocked RCS solver (problem/rcs.py) vs the generic engine.
 
 The blocked engine must produce the SAME solve (same damped Schur system,
 same PCG) as engine.solve_step — only the execution strategy differs
-(one-hot block matmuls vs gathers/scatters)."""
+(rig-sorted batches and fused segment ops vs per-batch gathers/scatters)."""
 
 import dataclasses
 
@@ -55,7 +55,7 @@ def test_blocked_solve_matches_generic():
     pa.use_blocked_engine = False
     ka = pa._build()
     # blocked path on pb (tiny tiles to exercise the ragged multi-tile code)
-    rcs.finalize_blocks(pb, rb=8, prb=16, ts=64)
+    rcs.finalize_blocks(pb, ts=64)
     assert any(getattr(c, "block_info", None) for c in pb.cfgs)
     kb = pb._build()
 
@@ -129,7 +129,7 @@ def test_blocked_solve_mixed_generic_batch():
     pa.use_blocked_engine = False
     _split_first_visual_batch(pa)
     _split_first_visual_batch(pb)
-    rcs.finalize_blocks(pb, rb=8, prb=16, ts=64)
+    rcs.finalize_blocks(pb, ts=64)
     blocked_flags = [bool(getattr(c, "block_info", None)) for c in pb.cfgs]
     assert any(blocked_flags) and not all(
         blocked_flags[i] for i, c in enumerate(pb.cfgs)
@@ -162,7 +162,7 @@ def test_blocked_optimize_converges_same():
     pa = _problem()
     pb = _problem()
     pa.use_blocked_engine = False
-    rcs.finalize_blocks(pb, rb=16, prb=16, ts=128)
+    rcs.finalize_blocks(pb, ts=128)
     assert any(getattr(c, "block_info", None) for c in pb.cfgs)
     sa = optimize(pa, LMSettings(max_iterations=8))
     sb = optimize(pb, LMSettings(max_iterations=8))
@@ -171,7 +171,7 @@ def test_blocked_optimize_converges_same():
 
 def _problem_cal():
     """Problem whose visual batches couple cam_extr + cam_intr windows —
-    exercises the single-pass CALIB kernels (seg_schur_down_cal family)."""
+    exercises the calibration-window columns of the segment ops."""
     s = SyntheticSession(duration=6.0, keyframe_hz=5.0, gyro_hz=200.0,
                          accel_hz=200.0, num_points=60, seed=3, pixel_noise=0.2)
     return build_synthetic_problem(
@@ -184,16 +184,14 @@ def _problem_cal():
 def test_blocked_cal_solve_matches_generic():
     """Calib-coupled blocked solve must satisfy the generic engine's damped
     Schur system (same structure as test_blocked_solve_matches_generic but
-    with camera intrinsics + extrinsics active => cal-fast kernels)."""
+    with camera intrinsics + extrinsics active => window columns)."""
     pa = _problem_cal()
     pb = _problem_cal()
     pa.use_blocked_engine = False
     ka = pa._build()
-    rcs.finalize_blocks(pb, rb=8, prb=16, ts=64)
+    rcs.finalize_blocks(pb, ts=64)
     kb = pb._build()
-    # the cal window plan must exist and the cal-fast path engage
-    assert any(getattr(c, "block_info", None) and c.block_info.wb > 0
-               for c in pb.cfgs)
+    assert any(getattr(c, "block_info", None) for c in pb.cfgs)
 
     lam = jnp.asarray(1e-4)
     lg_a = ka[0](tuple(pa.datas), pa.variables, pa.masks, None)
@@ -202,7 +200,9 @@ def test_blocked_cal_solve_matches_generic():
 
     asm_b = rcs.assemble(kb_cfgs(pb), tuple(pb.datas), lg_b, pb.variables,
                          pb.masks)
-    assert any(rcs._cal_fast(b) for b in asm_b.vis)
+    # the blocked batches carry the window columns beside the rig
+    assert any(b.groups[0] == "rig" and {"cam_intr", "cam_extr"} <= set(b.groups)
+               for b in asm_b.vis)
     out_b = kb[1](kb[6](tuple(pb.datas), lg_b, pb.variables, pb.masks),
                   tuple(pb.datas), lg_b, pb.variables, pb.masks, lam, 600,
                   1e-13)
@@ -232,7 +232,7 @@ def test_blocked_preconditioner_families():
     identity => no preconditioning, jacobi => plain block-Jacobi (no Schur
     correction), all converging to the same damped Schur solution."""
     pb = _problem()
-    rcs.finalize_blocks(pb, rb=8, prb=16, ts=64)
+    rcs.finalize_blocks(pb, ts=64)
     kb = pb._build()
     lam = jnp.asarray(1e-4)
     lg = kb[0](tuple(pb.datas), pb.variables, pb.masks, None)
@@ -271,24 +271,24 @@ def test_blocked_preconditioner_families():
 
 @pytest.mark.slow
 def test_lifetime_session_stays_single_pass():
-    """Realistic finite-lifetime tracks (bench workload shape) must qualify
-    for the single-pass rig-grid kernels under the DEFAULT tile geometry —
-    guards against regressions that silently fall back to the slow two-grid
-    permute path."""
+    """Realistic finite-lifetime tracks (bench workload shape): under the
+    DEFAULT tile size every visual batch must be blocked and rig-sorted, and
+    the single blocked batch takes the fused PCG matvec (seg_schur_pcg)."""
     s = SyntheticSession(duration=60.0, keyframe_hz=10.0, gyro_hz=200.0,
                          accel_hz=200.0, num_points=5000, seed=17,
                          pixel_noise=0.3, track_lifetime_sec=10.0)
     p = build_synthetic_problem(
         s, BuildOptions(init_pose_noise=0.005, init_point_noise=0.03,
                         init_vel_noise=0.03))
-    rcs.finalize_blocks(p)  # default rb/prb/ts
-    infos = [c.block_info for c in p.cfgs if getattr(c, "block_info", None)]
-    assert infos, "bench-shaped session must block"
-    assert all(i.prb2 > 0 and i.nhg > 0 for i in infos), [
-        (i.prb2, i.nhg) for i in infos]
+    rcs.finalize_blocks(p)  # default tile size
+    blocked = [(c, d) for c, d in zip(p.cfgs, p.datas)
+               if c.kind in rcs.VISUAL_KINDS]
+    assert blocked and all(getattr(c, "block_info", None) for c, _ in blocked)
+    for _, d in blocked:
+        assert np.all(np.diff(np.asarray(d["rig"])) >= 0)
     lg = p._build()[0](tuple(p.datas), p.variables, p.masks, None)
     asm = rcs.assemble(kb_cfgs(p), tuple(p.datas), lg, p.variables, p.masks)
-    assert all(rcs._rig_only_fast(b) for b in asm.vis)
+    assert len(asm.vis) == 1 and not asm.rest_pt.lins
 
 
 def test_pick_solver_threshold():

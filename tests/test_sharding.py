@@ -1,7 +1,7 @@
 """Tile-sharded blocked engine over a virtual 8-device CPU mesh.
 
-VERDICT round-1 item 2: the multi-chip path must run the BLOCKED single-pass
-engine, not the generic gather path — these tests assert (a) one sharded LM
+The multi-device path must run the BLOCKED engine, not the generic gather
+path — these tests assert (a) one sharded LM
 step equals the single-device blocked step to tolerance, (b) a short sharded
 optimize() converges to the single-device result, (c) the dryrun entry
 exercises the blocked engine.
@@ -53,12 +53,12 @@ def test_sharded_step_matches_single_device():
     assert n >= 8, "conftest must force an 8-device CPU mesh"
     pa = _problem()
     pb = _problem()
-    rcs.finalize_blocks(pa, rb=8, prb=16, ts=64)
+    rcs.finalize_blocks(pa, ts=64)
     assert any(getattr(c, "block_info", None) for c in pa.cfgs)
     lg_a, out_a = _one_step(pa)
 
     mesh = make_mesh(8)
-    shard_blocked_problem(pb, mesh, rb=8, prb=16, ts=64)
+    shard_blocked_problem(pb, mesh, ts=64)
     lg_b, out_b = _one_step(pb)
 
     np.testing.assert_allclose(float(lg_a.cost), float(lg_b.cost), rtol=1e-12)
@@ -84,10 +84,10 @@ def test_sharded_step_matches_single_device():
 def test_sharded_optimize_matches_single_device():
     pa = _problem()
     pb = _problem()
-    rcs.finalize_blocks(pa, rb=8, prb=16, ts=64)
+    rcs.finalize_blocks(pa, ts=64)
     sa = optimize(pa, LMSettings(max_iterations=6))
     mesh = make_mesh(8)
-    shard_blocked_problem(pb, mesh, rb=8, prb=16, ts=64)
+    shard_blocked_problem(pb, mesh, ts=64)
     sb = optimize(pb, LMSettings(max_iterations=6))
     np.testing.assert_allclose(sa.final_cost, sb.final_cost, rtol=1e-5)
 
@@ -96,12 +96,11 @@ def test_sharded_cal_step_matches_single_device():
     """Calib-coupled (cam intr+extr active) batches under tile sharding."""
     pa = _problem(estimate_cam_intr=True, estimate_cam_extr=True)
     pb = _problem(estimate_cam_intr=True, estimate_cam_extr=True)
-    rcs.finalize_blocks(pa, rb=8, prb=16, ts=64)
+    rcs.finalize_blocks(pa, ts=64)
     lg_a, out_a = _one_step(pa)
     mesh = make_mesh(8)
-    shard_blocked_problem(pb, mesh, rb=8, prb=16, ts=64)
-    assert any(getattr(c, "block_info", None) and c.block_info.wb > 0
-               for c in pb.cfgs)
+    shard_blocked_problem(pb, mesh, ts=64)
+    assert any(getattr(c, "block_info", None) for c in pb.cfgs)
     lg_b, out_b = _one_step(pb)
     np.testing.assert_allclose(float(lg_a.cost), float(lg_b.cost), rtol=1e-12)
     x_a, x_b = out_a[0], out_b[0]
@@ -119,10 +118,10 @@ def test_sharded_substep_resolve_matches_single_device():
     path (rebuilt inside the shard from the lambda that k_step forwards)."""
     pa = _problem()
     pb = _problem()
-    rcs.finalize_blocks(pa, rb=8, prb=16, ts=64)
+    rcs.finalize_blocks(pa, ts=64)
     lg_a, out_a = _one_step(pa)
     mesh = make_mesh(8)
-    shard_blocked_problem(pb, mesh, rb=8, prb=16, ts=64)
+    shard_blocked_problem(pb, mesh, ts=64)
     lg_b, out_b = _one_step(pb)
 
     # gradient at the post-step variables, as the optimizer's sub-step does
@@ -156,10 +155,10 @@ def test_landmark_halo_sharding_matches_and_drops_table_psum():
                             init_vel_noise=0.03))
 
     pa, pb = _p(), _p()
-    rcs.finalize_blocks(pa, rb=8, prb=16, ts=64)
+    rcs.finalize_blocks(pa, ts=64)
     lg_a, out_a = _one_step(pa, iters=60)
     mesh = make_mesh(8)
-    shard_blocked_problem(pb, mesh, rb=8, prb=16, ts=64)
+    shard_blocked_problem(pb, mesh, ts=64)
     lg_b, out_b = _one_step(pb, iters=60)
 
     plan = pb.pt_plan
@@ -207,10 +206,8 @@ def test_landmark_halo_sharding_matches_and_drops_table_psum():
 
 @pytest.mark.slow
 def test_generic_shard_problem_fallback_matches_single_device():
-    """The documented escape hatch for layouts that fail
-    shard_blocked_problem's single-pass eligibility (sharding.py ValueError
-    path): generic GSPMD sharding over the factor axis must still match the
-    single-device step (round-2 VERDICT item 8)."""
+    """Generic GSPMD sharding over the factor axis (shard_problem, no
+    blocked layout) must still match the single-device step."""
     from visual_inertial_bundle_adjustment_tpu.parallel.sharding import shard_problem
 
     pa = _problem()

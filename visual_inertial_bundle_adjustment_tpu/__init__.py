@@ -1,13 +1,13 @@
-"""TPU-native visual-inertial bundle adjustment framework.
+"""Visual-inertial bundle adjustment on an accelerator, in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 facebookresearch/visual_inertial_bundle_adjustment: full-state re-optimization
 (poses, velocities, angular velocities, landmarks, and all sensor calibration
 modeled as random walks over 5s windows) of Aria-style recordings by
 Levenberg-Marquardt over a factor graph, with landmark Schur complement and a
 distributed reduced-camera-system solve.
 
-Design (TPU-first, not a port):
+Design (data-parallel, not a port):
   - Variables live in flat structure-of-arrays tables (`problem.variables`),
     retraction is a pure function over the whole table.
   - Factors are dense batches per type; residuals are pure JAX functions, the

@@ -1,6 +1,6 @@
 """IMU measurement model: calibration state, compensation, noise model.
 
-TPU-native re-design of reference lib/motion/imu_types/* and
+Data-parallel re-design of reference lib/motion/imu_types/* and
 lib/motion/preintegration/CompensateJac.{h,cpp}: instead of a dynamic-dim
 variable whose error-state layout depends on 8 estimation options
 (ImuCalibrationOptions.h:13-108, ImuCalibrationJacobianIndices.h:19-201), the

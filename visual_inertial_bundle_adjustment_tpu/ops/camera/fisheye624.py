@@ -23,7 +23,7 @@ followed by Newton inversion of the theta polynomial (fixed iteration counts
 for jit; used only at initialization/triangulation).
 
 All functions are batched-native over leading dims; Jacobians come from
-jax.jacfwd at the call site (small dense per-point blocks fuse well on TPU).
+jax.jacfwd at the call site (small dense per-point blocks fuse into one loop).
 """
 
 from __future__ import annotations

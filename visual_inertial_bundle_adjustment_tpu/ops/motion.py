@@ -1,6 +1,6 @@
 """RotVelPos motion-integral algebra (batched, scan-friendly).
 
-TPU-native re-derivation of reference lib/motion/preintegration/MotionIntegral.{h,cpp}:
+Data-parallel re-derivation of reference lib/motion/preintegration/MotionIntegral.{h,cpp}:
 the group RotVelPos{R, dV, dP, dt} of gravity-free IMU motion integrals with
   combine(a, b) = {a.R b.R, a.dV + a.R b.dV, a.dP + a.dV b.dt + a.R b.dP, a.dt + b.dt}
 closed-form integration of a constant (gyro, accel) signal (exact for any dt,

@@ -1,6 +1,6 @@
 """Rolling-shutter pose-shift tables as fixed-size arrays + interpolation.
 
-TPU-native re-design of reference lib/motion/preintegration/RollingShutterData.{h,cpp}:
+Data-parallel re-design of reference lib/motion/preintegration/RollingShutterData.{h,cpp}:
 per rig, IMU-integrated relative poses (RVPs) are sampled at gyro boundaries
 over +-(readout/2 + slack) around the frame-midpoint, re-based to the
 midpoint, and turned into per-interval constant-signal interpolants via
@@ -146,9 +146,8 @@ def rs_segment_lookup(tables: RSTables, rows, t_delta):
     778k observations x K~200 samples those are multi-GB arrays).
 
     Two-level bucketed search + packed payload = THREE row gathers total
-    (TPU gathers are row-latency-bound; the former log2(K)-iteration binary
-    search plus 7 per-field gathers was ~15 and dominated the fused RS
-    kernel's runtime 12:1). Level 1 gathers every-16th boundary (N, ceil(K/16)),
+    (every gather is a dependent memory round trip; the former
+    log2(K)-iteration binary search plus 7 per-field gathers was ~15). Level 1 gathers every-16th boundary (N, ceil(K/16)),
     a vectorized count picks the bucket; level 2 gathers that bucket's 16
     boundaries; the payload rides one (N, 20) gather of the packed segment
     table. Semantics identical to searchsorted(side="right"). The segment

@@ -1,12 +1,12 @@
 """Multi-chip distribution: factor batches sharded over a device mesh.
 
-TPU-native replacement for the reference's shared-memory parallelism
+Device-mesh replacement for the reference's shared-memory parallelism
 (dispenso parallel_for over factor chunks + IEEE-magic-NaN scatter locks,
 lib/small_thing/Factor.h:668-734, AtomicOps.h:21-112): factor batches are
 sharded over the mesh axis 'kf' (keyframe blocks — batches are built
 time-sorted so shards are contiguous trajectory spans), variable tables are
 replicated, and XLA GSPMD turns every factor->variable scatter-add into a
-partial-sum + all-reduce over ICI. The whole LM step (linearize + Schur +
+partial-sum + all-reduce over the device interconnect. The whole LM step (linearize + Schur +
 PCG + retract) jits over the mesh unchanged — the engine's gather/einsum/
 scatter structure partitions along the factor axis with no code changes.
 
@@ -86,16 +86,15 @@ def _pad_batch(data: dict, n_pad: int):
 # ---------------------------------------------------------------------------
 # FAST multi-chip path: the blocked ragged-tile engine, sharded by TILES.
 #
-# Tiles are independent by construction (each addresses its own 8-aligned
-# windows of the rig/calib tables and a bounded landmark window), so the
-# tile grid shards over the 'kf' axis with variable tables replicated; every
-# factor->table reduction runs per-shard in the Pallas kernels and is
-# completed by ONE psum of the small output tables (problem/rcs.py
-# _maybe_psum). Per-PCG-iteration collective payload = the reduced tables
-# (~(R,12) + calib windows + (L,3)), a few hundred KB over ICI.
+# Tiles hold contiguous spans of the rig-sorted observations, so the tile
+# grid shards over the 'kf' axis with variable tables replicated; every
+# factor->table reduction runs per shard in the segment ops and is completed
+# by ONE psum of the small output tables (problem/rcs.py _maybe_psum), or by
+# neighbor halo exchanges where a halo plan exists. Per-PCG-iteration
+# collective payload = the reduced tables (~(R,12) + calib windows + (L,3)),
+# a few hundred KB.
 #
-# This replaces the slow generic-GSPMD path (shard_problem above, kept for
-# problems the single-pass kernels cannot express) — the reference mechanism
+# This replaces the generic-GSPMD path (shard_problem below) — the reference mechanism
 # being replaced is dispenso's shared-memory factor-chunk parallel_for +
 # atomic scatter-adds (lib/small_thing/Factor.h:668-734, AtomicOps.h:21-112).
 # ---------------------------------------------------------------------------
@@ -130,18 +129,11 @@ def _resolved_cfgs(problem, ga):
 
 
 def shard_blocked_problem(problem, mesh: Mesh, axis: str = "kf", **finalize_kw):
-    """Blocked layout + tile-sharding over the mesh.
-
-    Requires every blocked batch to qualify for the single-pass kernels
-    (bounded per-tile point/window ranges): raises ValueError otherwise —
-    fall back to shard_problem for exotic layouts."""
-    from ..problem import factors as fct
+    """Blocked layout (rcs.finalize_blocks) + tile-sharding over the mesh."""
     from ..problem import rcs
 
     n = mesh.devices.size
     rcs.finalize_blocks(problem, **finalize_kw)
-    ga = _active_groups(problem)
-    sharded0 = NamedSharding(mesh, P(axis))
     replicated = NamedSharding(mesh, P())
 
     new_datas = []
@@ -154,25 +146,9 @@ def shard_blocked_problem(problem, mesh: Mesh, axis: str = "kf", **finalize_kw):
                         if hasattr(a, "ndim") and a.ndim >= 1)
             data = _pad_batch(data, (-size) % n)
         else:
-            groups = tuple(
-                g for g, _ in fct.REGISTRY[cfg.kind]["tangents"]
-                if ga[g] and g != fct.POINTS
-            )
-            cal_ok = (info.wb > 0 and "_cb_local" in data and groups
-                      and groups[0] == fct.RIG
-                      and all(g in (fct.RIG, fct.CAM_EXTR, fct.CAM_INTR)
-                              for g in groups))
-            if not (info.prb2 > 0 and info.nhg > 0
-                    and (groups == (fct.RIG,) or cal_ok)):
-                raise ValueError(
-                    f"batch {cfg.label or cfg.kind} is not single-pass "
-                    "eligible; use shard_problem (generic GSPMD) instead"
-                )
-            # drop the point-grid plan (global permutation — single-pass
-            # batches never use it) and pad the TILE grid to n | nt
-            data = {k: a for k, a in data.items()
-                    if not (k.startswith("_pt_") or k.startswith("_ell"))}
-            nt, ts, rb = info.nt, info.ts, info.rb
+            # pad the TILE grid to n | nt
+            data = {k: a for k, a in data.items() if not k.startswith("_ell")}
+            nt, ts = info.nt, info.ts
             nt_pad = -(-nt // n) * n
             extra = nt_pad - nt
             if extra:
@@ -183,15 +159,6 @@ def shard_blocked_problem(problem, mesh: Mesh, axis: str = "kf", **finalize_kw):
                         if k == "_pad":
                             fill[:] = 1.0
                         return np.concatenate([a, fill], 0)
-                    if a.ndim >= 1 and a.shape[0] == nt:
-                        return np.concatenate(
-                            [a, np.zeros((extra,) + a.shape[1:], a.dtype)], 0)
-                    if a.ndim >= 1 and a.shape[0] == nt * rb:
-                        return np.concatenate(
-                            [a, np.zeros((extra * rb,) + a.shape[1:], a.dtype)], 0)
-                    if a.ndim == 2 and a.shape[1] == nt * ts:  # _uvT/_sh4
-                        return np.concatenate(
-                            [a, np.zeros(a.shape[:1] + (extra * ts,), a.dtype)], 1)
                     return a
                 data = {
                     k: (pad_rows(k, a) if hasattr(a, "ndim") else a)
@@ -227,33 +194,28 @@ def shard_blocked_problem(problem, mesh: Mesh, axis: str = "kf", **finalize_kw):
     problem._blocked_done = True
     problem._jits = None
     problem._k_iter = None
-    del sharded0
     return problem
 
 
 def _data_specs(cfg, data, ax):
-    """PartitionSpec per data array: the factor/tile axis shards, the rest
+    """PartitionSpec per data array: the factor axis shards, the rest
     replicates. Factor-axis arrays are recognized by their leading dim
-    (== padded N or nt or nt*rb); _uvT/_sh4 carry the factor axis LAST."""
+    (== the padded factor count)."""
     info = getattr(cfg, "block_info", None)
     if info is not None:
         N = info.nt * info.ts
-        tile_sizes = {info.nt, info.nt * info.rb}
     else:
         N = max(
             (a.shape[0] for a in data.values()
              if hasattr(a, "ndim") and a.ndim >= 1 and not isinstance(a, tuple)),
             default=0,
         )
-        tile_sizes = set()
     specs = {}
     for k, a in data.items():
         if not hasattr(a, "ndim"):
             specs[k] = P()
             continue
-        if k in ("_uvT", "_sh4"):
-            specs[k] = P(None, ax)
-        elif a.ndim >= 1 and (a.shape[0] == N or a.shape[0] in tile_sizes):
+        if a.ndim >= 1 and a.shape[0] == N:
             specs[k] = P(ax, *([None] * (a.ndim - 1)))
         else:
             specs[k] = P()
@@ -266,8 +228,8 @@ def point_halo_plan(problem, n, log=None):
     as before — and the failed check is logged, so a real session that
     silently pays the full-psum cost is at least visible).
 
-    Qualifies when every point-coupled batch is blocked with bounded per-tile
-    point windows (single-pass eligible), tiles are sharded contiguously, and
+    Qualifies when every point-coupled batch is blocked, tiles are sharded
+    contiguously, and
     each shard's touched point range overlaps only its neighbors' — true by
     construction for time-sorted sessions (tracks live seconds, ids are
     birth-ordered). SURVEY §7 step 8: landmarks assigned to their owning
@@ -292,9 +254,9 @@ def point_halo_plan(problem, n, log=None):
         info = getattr(cfg, "block_info", None)
         if not couples_points:
             continue
-        if info is None or info.prb2 == 0 or "_rg_hib" not in data:
+        if info is None:
             return bail(f"point-coupled batch '{cfg.label or cfg.kind}' is "
-                        "off the single-pass path")
+                        "not blocked")
         any_blocked = True
         nt = info.nt
         if nt % n:
@@ -382,8 +344,8 @@ def table_halo_plans(problem, n, log=None):
     are the halo exchange") applied beyond landmarks.
 
     For each group, per-shard row support is computed from the REAL data:
-    blocked batches address [tile base, base+rb) rig rows (and [cal base,
-    base+wb) window rows); generic batches' index arrays shard contiguously
+    blocked batches from the rows their real (unpadded) observations touch;
+    generic batches' index arrays shard contiguously
     on the factor axis (their zero-weight pads replicate the last real
     index, so support stays tight). Groups whose support is not banded /
     big enough fall back to the per-matvec psum, with the reason logged.
@@ -411,24 +373,16 @@ def table_halo_plans(problem, n, log=None):
                     lo[g][:] = 0
                     hi[g][:] = table_rows[g]
                 break
-            per = nt // n
-            pad_tile = (np.asarray(data["_pad"]).reshape(nt, -1) > 0.5).all(axis=1)
-            rb_base = np.asarray(data["_rb_base"], np.int64)
-            cb_base = (np.asarray(data["_cb_base"], np.int64)
-                       if "_cb_base" in data else None)
-            for s in range(n):
-                sl = slice(s * per, (s + 1) * per)
-                real = ~pad_tile[sl]
-                if not real.any():
+            real = (np.asarray(data["_pad"]) < 0.5).reshape(n, -1)
+            for group, field in fct.REGISTRY[cfg.kind]["tangents"]:
+                if group not in targets or field is None or field not in data:
                     continue
-                rbs = rb_base[sl][real]
-                lo[fct.RIG][s] = min(lo[fct.RIG][s], int(rbs.min()))
-                hi[fct.RIG][s] = max(hi[fct.RIG][s], int(rbs.max()) + info.rb)
-                if cb_base is not None and info.wb > 0:
-                    cbs = cb_base[sl][real]
-                    for g in (fct.CAM_INTR, fct.CAM_EXTR):
-                        lo[g][s] = min(lo[g][s], int(cbs.min()))
-                        hi[g][s] = max(hi[g][s], int(cbs.max()) + info.wb)
+                ids = np.asarray(data[field], np.int64).reshape(n, -1)
+                for s in range(n):
+                    b = ids[s][real[s]]
+                    if b.size:
+                        lo[group][s] = min(lo[group][s], int(b.min()))
+                        hi[group][s] = max(hi[group][s], int(b.max()) + 1)
             continue
         for group, field in fct.REGISTRY[cfg.kind]["tangents"]:
             if group not in targets or field is None or field not in data:

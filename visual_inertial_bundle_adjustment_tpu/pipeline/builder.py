@@ -32,7 +32,7 @@ OBS_SQRT_H = 0.7  # tools/save_observations fixed whitening (save_observations.p
 def chol_inv_lower(cov):
     """sqrt information: L^-1 with cov = L L^T (batched).
 
-    A trace-relative jitter keeps the factorization finite in float32 (TPU),
+    A trace-relative jitter keeps the factorization finite in float32,
     where preintegration covariances have ~1e-9-scale eigenvalues."""
     d = cov.shape[-1]
     eye = jnp.broadcast_to(jnp.eye(d, dtype=cov.dtype), cov.shape)

@@ -86,7 +86,7 @@ def parse_calib_groups(args_str):
 
 def build_arg_parser():
     p = argparse.ArgumentParser(
-        prog="vi_ba", description="TPU-native visual-inertial bundle adjustment"
+        prog="vi_ba", description="visual-inertial bundle adjustment"
     )
     p.add_argument("-i", "--input-dir", required=True)
     p.add_argument("-o", "--output-dir", default=None)
@@ -220,6 +220,10 @@ def make_adapter_options(args, gt_traj=None):
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
+
+    from ..utils.jax_setup import setup_jax
+
+    setup_jax()
 
     from ..problem.optimizer import LMSettings, optimize
     from . import session_data as sio
@@ -357,6 +361,8 @@ def main(argv=None):
         log(f"outputs written to {outdir}")
 
     if args.json_report and summary is not None:
+        from ..problem import rcs
+
         report = {
             "initialCost": summary.initial_cost,
             "finalCost": summary.final_cost,
@@ -364,6 +370,17 @@ def main(argv=None):
             "numTroubledSeqs": summary.num_troubled_seqs,
             "largestTroubledSeq": summary.largest_troubled_seq,
             "totalTimeSec": time.time() - t0,
+            "iterationTimesSec": summary.iteration_times,
+            "numRigs": adapter.R,
+            "numWindows": adapter.num_windows,
+            "numLandmarks": int(problem.variables.points.shape[0]),
+            "numObservations": sum(
+                int(d["rig"].shape[0]) - int(np.sum(np.asarray(d.get("_pad", 0))))
+                for c, d in zip(problem.cfgs, problem.datas)
+                if c.kind in rcs.VISUAL_KINDS),
+            "blockedBatches": sum(
+                1 for c in problem.cfgs if getattr(c, "block_info", None)),
+            "carryIterations": summary.carry_iterations,
         }
         with open(args.json_report, "w") as f:
             json.dump(report, f, indent=1)

@@ -6,7 +6,7 @@ single-session problems share one optimization (and one gravity variable),
 with cross-session loop-closure landmarks unified across sessions and
 optional constant base-map keyrigs observing them.
 
-The TPU-native form: variable tables of all sessions are CONCATENATED with
+The data-parallel form: variable tables of all sessions are CONCATENATED with
 per-session row offsets; every factor batch's index arrays are shifted; the
 shared gravity is the (single) gravity table entry; loop-closure point
 equivalences are merged by union-find before concatenation. The result is an

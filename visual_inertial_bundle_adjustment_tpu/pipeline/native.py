@@ -8,6 +8,7 @@ unavailable, so the framework stays pure-Python-capable.
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 
@@ -30,10 +31,14 @@ def _get_lib():
     try:
         if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
             _BUILD.mkdir(parents=True, exist_ok=True)
+            # build under a private name and rename into place: concurrent
+            # first uses (test workers) never load a half-written library
+            tmp = _BUILD / f"libfastcsv.{os.getpid()}.so"
             subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", str(_LIB)],
+                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", str(tmp)],
                 check=True, capture_output=True, timeout=120,
             )
+            os.replace(tmp, _LIB)
         lib = ctypes.CDLL(str(_LIB))
         lib.imu_csv_count.restype = ctypes.c_long
         lib.imu_csv_count.argtypes = [ctypes.c_char_p]

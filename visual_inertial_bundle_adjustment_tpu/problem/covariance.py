@@ -71,8 +71,8 @@ def prepare_system(problem, lam=1e-9):
     (Optimizer.cpp:574-604).
 
     When the problem carries a blocked layout (large visual batches through
-    rcs.finalize_blocks) the system is assembled with the BLOCKED MXU engine
-    and columns solve against the single-pass Schur matvec kernels — the
+    rcs.finalize_blocks) the system is assembled with the BLOCKED engine
+    and columns solve against its fused Schur matvec (ops/segments.py) — the
     capacity-scale path (round-3 VERDICT ask #4); small problems keep the
     generic engine."""
     from . import rcs as _rcs
@@ -109,8 +109,8 @@ def solve_columns(problem, entries, lam=1e-9, pcg_iters=800, pcg_tol=1e-12,
 
     One linearization for ALL columns. On the generic engine the multi-RHS
     solve runs as vmapped PCG in chunks (memory = chunk x reduced-state); on
-    the blocked engine columns scan sequentially through the single-pass
-    Schur kernels (each solve stops early at pcg_tol). Returns a stacked
+    the blocked engine columns scan sequentially through its fused
+    Schur matvec (each solve stops early at pcg_tol). Returns a stacked
     Tangent with leading dim K = len(entries)."""
     from . import rcs as _rcs
 

@@ -1,10 +1,10 @@
 """Gauss-Newton engine: cost, gradient, Schur-reduced matvec, PCG solve.
 
-TPU-native replacement for the reference's assembled block-sparse Hessian +
+Accelerator replacement for the reference's assembled block-sparse Hessian +
 BaSpaCho supernodal Cholesky (lib/small_thing/Optimizer.cpp:166-331): nothing
 global is ever assembled. Per-iteration state is the list of linearized factor
 batches (residuals + per-factor Jacobian blocks); every operator is built from
-three primitives that map perfectly onto TPU:
+three data-parallel primitives:
 
   gather   x[group][idx]                  (factor <- variable)
   einsum   J @ x / J^T @ r                (dense per-factor blocks)
@@ -30,10 +30,16 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.linalg
 
 from ..ops import losses
 from . import factors as fct
 from .structure import Masks, Tangent, VariableTables, t_dot, zero_tangent
+
+# Every f32 contraction of the solver states its precision: DEFAULT lets the
+# GPU run f32 dots in TF32 (~3 decimal digits), far below what the Schur
+# system and PCG need.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class LinearizedGraph(NamedTuple):
@@ -218,7 +224,7 @@ def _accumulate_grad(lg: LinearizedGraph, v: VariableTables):
     for lin, w in zip(lg.lins, lg.w):
         wres = lin.res * w[None, :]  # (d, N)
         for group, idx, J, ell in zip(lin.groups, lin.idx, lin.jac, lin.ell):
-            contrib = jnp.einsum("dkn,dn->kn", J, wres)  # (dim, N)
+            contrib = jnp.einsum("dkn,dn->kn", J, wres, precision=HIGHEST)  # (dim, N)
             if group == fct.POINTS:
                 gp = gp + fct.scatter_rows(ell, idx, contrib, gp.shape[0])
             elif group == fct.GRAVITY:
@@ -234,7 +240,7 @@ def _hess_diag(lg: LinearizedGraph, v: VariableTables):
     dp = jnp.zeros_like(v.points)
     for lin, w in zip(lg.lins, lg.w):
         for group, idx, J, ell in zip(lin.groups, lin.idx, lin.jac, lin.ell):
-            contrib = jnp.einsum("dkn,dkn->kn", J, J * w[None, None, :])  # (dim, N)
+            contrib = jnp.einsum("dkn,dkn->kn", J, J * w[None, None, :], precision=HIGHEST)  # (dim, N)
             if group == fct.POINTS:
                 dp = dp + fct.scatter_rows(ell, idx, contrib, dp.shape[0])
             elif group == fct.GRAVITY:
@@ -252,7 +258,7 @@ def _point_blocks(lg: LinearizedGraph, v: VariableTables, lam):
         for group, idx, J, ell in zip(lin.groups, lin.idx, lin.jac, lin.ell):
             if group != fct.POINTS:
                 continue
-            contrib = jnp.einsum("dan,dbn->abn", J * w[None, None, :], J)  # (3,3,N)
+            contrib = jnp.einsum("dan,dbn->abn", J * w[None, None, :], J, precision=HIGHEST)  # (3,3,N)
             H = H + fct.scatter_rows(ell, idx, contrib, L)
     # damping diag*(1+lam)+lam; masked/unobserved dims get identity via +lam
     diag = jnp.diagonal(H, axis1=-2, axis2=-1)
@@ -273,10 +279,10 @@ def _hmatvec(lg: LinearizedGraph, v, x: Tangent, xp):
                 xvT = jnp.broadcast_to(x.gravity[:, None], (2, J.shape[-1]))
             else:
                 xvT = getattr(x, group)[idx].T
-            u = u + jnp.einsum("dkn,kn->dn", J, xvT)
+            u = u + jnp.einsum("dkn,kn->dn", J, xvT, precision=HIGHEST)
         wu = u * w[None, :]
         for group, idx, J, ell in zip(lin.groups, lin.idx, lin.jac, lin.ell):
-            contrib = jnp.einsum("dkn,dn->kn", J, wu)
+            contrib = jnp.einsum("dkn,dn->kn", J, wu, precision=HIGHEST)
             if group == fct.POINTS:
                 yp = yp + fct.scatter_rows(ell, idx, contrib, yp.shape[0])
             elif group == fct.GRAVITY:
@@ -303,7 +309,7 @@ class ReducedSystem(NamedTuple):
 
 def _inv3(H):
     """Closed-form symmetric 3x3 inverse (adjugate / det) — pure elementwise,
-    far faster on TPU than batched triangular solves for tiny blocks."""
+    one fused op instead of batched triangular solves for tiny blocks."""
     a, b, c = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     d, e = H[..., 1, 1], H[..., 1, 2]
     f = H[..., 2, 2]
@@ -323,71 +329,22 @@ def _inv3(H):
 
 def _chol_solve(H_ll_inv, b):
     """Apply the precomputed landmark-block inverses."""
-    return jnp.einsum("...ij,...j->...i", H_ll_inv, b)
+    return jnp.einsum("...ij,...j->...i", H_ll_inv, b, precision=HIGHEST)
 
 
-def _inv_spd_small(B):
-    """Batched SPD inverse via fully-unrolled Cholesky: pure elementwise
-    (n,)-vector ops that XLA fuses into a handful of kernels. XLA's batched
-    LU `jnp.linalg.inv` runs ~20 ms for (6000, 12, 12) on a v5e (pivoting is
-    scalar-rate); this form is ~0.1 ms. Used for the per-lambda block-Jacobi
-    preconditioner inverses (small dims, large batch)."""
-    d = B.shape[-1]
-    L = [[None] * d for _ in range(d)]
-    for j in range(d):
-        s = B[..., j, j] - sum(L[j][k] * L[j][k] for k in range(j))
-        Ljj = jnp.sqrt(jnp.maximum(s, 1e-30))
-        L[j][j] = Ljj
-        inv_ljj = 1.0 / Ljj
-        for i in range(j + 1, d):
-            s = B[..., i, j] - sum(L[i][k] * L[j][k] for k in range(j))
-            L[i][j] = s * inv_ljj
-    # M = L^-1 (lower triangular, column by column)
-    M = [[None] * d for _ in range(d)]
-    for j in range(d):
-        M[j][j] = 1.0 / L[j][j]
-        for i in range(j + 1, d):
-            s = sum(L[i][k] * M[k][j] for k in range(j, i))
-            M[i][j] = -s / L[i][i]
-    # B^-1 = M^T M
-    rows = []
-    for i in range(d):
-        cols = []
-        for j in range(d):
-            lo = max(i, j)
-            cols.append(sum(M[k][i] * M[k][j] for k in range(lo, d)))
-        rows.append(jnp.stack(cols, axis=-1))
-    return jnp.stack(rows, axis=-2)
-
-
-# unrolled-Cholesky inverse pays off when batch >> dim; XLA's LU is fine for
-# the few-row wide tables (23x23 windows) and keeps trace size bounded
-_INV_UNROLL_MAX_DIM = 17
-
-
-def _spd_min_pivot(B):
-    """Smallest Cholesky pivot per block (same unrolled recursion as
-    _inv_spd_small, values only — no inverse)."""
-    d = B.shape[-1]
-    L = [[None] * d for _ in range(d)]
-    mp = None
-    for j in range(d):
-        s = B[..., j, j] - sum(L[j][k] * L[j][k] for k in range(j))
-        mp = s if mp is None else jnp.minimum(mp, s)
-        inv_ljj = 1.0 / jnp.sqrt(jnp.maximum(s, 1e-30))
-        L[j][j] = jnp.sqrt(jnp.maximum(s, 1e-30))
-        for i in range(j + 1, d):
-            t = B[..., i, j] - sum(L[i][k] * L[j][k] for k in range(j))
-            L[i][j] = t * inv_ljj
-    return mp
+def _min_pivot(B):
+    """Smallest Cholesky pivot of each block (the squared diagonal of the
+    batched factor); NaN where a pivot is not positive."""
+    L = jnp.linalg.cholesky(B)
+    return jnp.min(jnp.diagonal(L, axis1=-2, axis2=-1) ** 2, axis=-1)
 
 
 def _precond_inv(B):
     """Inverse of block-Jacobi preconditioner blocks, with the
     LowerPrecSolvePrecond definiteness safeguard (Preconditioner.h:186-219):
-    the bf16 block accumulation (rcs._precond_finish / seg_precond_rig) can
-    round a nearly-Schur-cancelled block indefinite; an indefinite
-    preconditioner silently breaks CG. Escalating diagonal bumps are applied
+    reduced-precision block accumulation ("lower_prec") or f32 cancellation
+    in the Schur-corrected rig blocks can round a nearly-cancelled block
+    indefinite; an indefinite preconditioner silently breaks CG. Escalating diagonal bumps are applied
     only to blocks whose Cholesky pivots fail — exact blocks pass through
     untouched."""
     eye = jnp.eye(B.shape[-1], dtype=B.dtype)
@@ -399,11 +356,13 @@ def _precond_inv(B):
     # blocks (pivot < 0 at working precision) must not
     tol = 10.0 * float(jnp.finfo(B.dtype).eps)
     for bump in (1e-4, 1e-2, 1.0):
-        bad = ~(_spd_min_pivot(B) > scale * tol)
+        bad = ~(_min_pivot(B) > scale * tol)
         B = B + (jnp.where(bad, bump, 0.0) * scale)[..., None, None] * eye
-    if B.shape[-1] <= _INV_UNROLL_MAX_DIM:
-        return _inv_spd_small(B)
-    return jnp.linalg.inv(B)
+    # batched Cholesky + triangular solves (cuSOLVER/cuBLAS batched on the
+    # GPU): one library call per group instead of a d^3-op unrolled
+    # recursion, which took most of the LM step's compile time
+    L = jnp.linalg.cholesky(B)
+    return jax.scipy.linalg.cho_solve((L, True), jnp.broadcast_to(eye, B.shape))
 
 
 def build_reduced_system(lg, v, masks: Masks, lam, precond_blocks=True, precond="gauss_seidel"):
@@ -411,7 +370,7 @@ def build_reduced_system(lg, v, masks: Masks, lam, precond_blocks=True, precond=
       - "gauss_seidel": block-Jacobi + per-observation Schur self-correction on
         rig blocks (the corner Gauss-Seidel analog, Preconditioner.h:117-160)
       - "jacobi": plain block-Jacobi (Preconditioner.h:53-114)
-      - "lower_prec": gauss_seidel blocks accumulated via bfloat16 (the TPU
+      - "lower_prec": gauss_seidel blocks accumulated via bfloat16 (the
         analog of the fp32 LowerPrecSolvePrecond, Preconditioner.h:163-246)
       - "identity": no preconditioning (IdentityPrecond)
     """
@@ -455,7 +414,7 @@ def _build_preconditioner(lg, v, masks: Masks, lam, H_ll_inv, schur_corr=True,
             if group == fct.POINTS:
                 pt_entry = (idx, J)
                 continue
-            B = acc(jnp.einsum("dan,dbn->abn", J * w[None, None, :], J))  # (dim,dim,N)
+            B = acc(jnp.einsum("dan,dbn->abn", J * w[None, None, :], J, precision=HIGHEST))  # (dim,dim,N)
             if group == fct.GRAVITY:
                 blocks[group] = blocks[group].at[0].add(jnp.sum(B, axis=-1).astype(blocks[group].dtype))
             else:
@@ -469,8 +428,8 @@ def _build_preconditioner(lg, v, masks: Masks, lam, H_ll_inv, schur_corr=True,
             for group, idx, J, ell in zip(lin.groups, lin.idx, lin.jac, lin.ell):
                 if group != fct.RIG:
                     continue
-                A = jnp.einsum("dan,dbn->abn", J * w[None, None, :], Jp)  # (12,3,N)
-                corr = acc(jnp.einsum("abn,bcn,dcn->adn", A, HinvT, A))  # (12,12,N)
+                A = jnp.einsum("dan,dbn->abn", J * w[None, None, :], Jp, precision=HIGHEST)  # (12,3,N)
+                corr = acc(jnp.einsum("abn,bcn,dcn->adn", A, HinvT, A, precision=HIGHEST))  # (12,12,N)
                 blocks[group] = blocks[group] - fct.scatter_rows(
                     ell, idx, corr, blocks[group].shape[0]
                 ).astype(blocks[group].dtype)
@@ -505,12 +464,12 @@ def _apply_precond(rs: ReducedSystem, r: Tangent) -> Tangent:
     if p is None:  # IdentityPrecond (Preconditioner.h:44-50)
         return r
     return Tangent(
-        rig=jnp.einsum("nij,nj->ni", p.rig, r.rig),
-        cam_intr=jnp.einsum("nij,nj->ni", p.cam_intr, r.cam_intr),
-        cam_extr=jnp.einsum("nij,nj->ni", p.cam_extr, r.cam_extr),
-        imu_calib=jnp.einsum("nij,nj->ni", p.imu_calib, r.imu_calib),
-        imu_extr=jnp.einsum("nij,nj->ni", p.imu_extr, r.imu_extr),
-        det_bias=jnp.einsum("nij,nj->ni", p.det_bias, r.det_bias),
+        rig=jnp.einsum("nij,nj->ni", p.rig, r.rig, precision=HIGHEST),
+        cam_intr=jnp.einsum("nij,nj->ni", p.cam_intr, r.cam_intr, precision=HIGHEST),
+        cam_extr=jnp.einsum("nij,nj->ni", p.cam_extr, r.cam_extr, precision=HIGHEST),
+        imu_calib=jnp.einsum("nij,nj->ni", p.imu_calib, r.imu_calib, precision=HIGHEST),
+        imu_extr=jnp.einsum("nij,nj->ni", p.imu_extr, r.imu_extr, precision=HIGHEST),
+        det_bias=jnp.einsum("nij,nj->ni", p.det_bias, r.det_bias, precision=HIGHEST),
         gravity=p.gravity @ r.gravity,
     )
 
@@ -532,8 +491,8 @@ def _w_transpose_x(lg, v, x: Tangent):
                 if group == fct.GRAVITY
                 else getattr(x, group)[idx].T
             )
-            u = u + jnp.einsum("dkn,kn->dn", J, xvT)
-        contrib = jnp.einsum("dkn,dn->kn", pt_J, u * w[None, :])
+            u = u + jnp.einsum("dkn,kn->dn", J, xvT, precision=HIGHEST)
+        contrib = jnp.einsum("dkn,dn->kn", pt_J, u * w[None, :], precision=HIGHEST)
         t = t + fct.scatter_rows(pt_ell, pt_idx, contrib, t.shape[0])
     return t
 
@@ -547,12 +506,12 @@ def _w_y(lg, v, yl):
         u = jnp.zeros_like(lin.res)  # (d, N)
         for group, idx, J in zip(lin.groups, lin.idx, lin.jac):
             if group == fct.POINTS:
-                u = u + jnp.einsum("dkn,kn->dn", J, yl[idx].T)
+                u = u + jnp.einsum("dkn,kn->dn", J, yl[idx].T, precision=HIGHEST)
         wu = u * w[None, :]
         for group, idx, J, ell in zip(lin.groups, lin.idx, lin.jac, lin.ell):
             if group == fct.POINTS:
                 continue
-            contrib = jnp.einsum("dkn,dn->kn", J, wu)
+            contrib = jnp.einsum("dkn,dn->kn", J, wu, precision=HIGHEST)
             if group == fct.GRAVITY:
                 y[group] = y[group] + jnp.sum(contrib, axis=-1)
             else:
@@ -609,8 +568,8 @@ def pcg_solve(lg, v, rs: ReducedSystem, b: Tangent, max_iters: int, rel_tol):
     def prec(rp):
         if Pm is None:  # IdentityPrecond
             return rp
-        # elementwise contraction (VPU, f32/f64-exact): a batched matmul
-        # would round through bf16 on the MXU at DEFAULT precision
+        # elementwise contraction, exact in the working precision: a batched
+        # matmul at DEFAULT precision may run in TF32
         return jnp.sum(Pm * rp[:, None, :], axis=-1)
 
     b_norm2 = jnp.vdot(bp, bp)

@@ -1,6 +1,6 @@
 """Live optimization monitoring: per-iteration data, background runner, dashboard.
 
-TPU-native replacement for the reference GUI pipeline
+Headless replacement for the reference GUI pipeline
 (interfaces/ark/main_AriaKit_ViBa_GUI.cpp:104-130 + gui/MonitoringState.h:20-100):
 the reference runs the optimization in a std::thread and publishes
 `IterationData` (cost, lambda, per-factor-type residual percentiles,
@@ -11,7 +11,7 @@ Here the same data flows through `Monitor` (thread-safe, identical content)
 with two sinks instead of an X11 window — a JSONL stream and a fully
 self-contained HTML dashboard (inline SVG: cost/damping curves, residual
 percentile bands, top-down + side trajectory views with the point cloud) —
-the headless-friendly equivalent for TPU pods.
+the headless-friendly equivalent for remote accelerator hosts.
 """
 
 from __future__ import annotations
